@@ -1,17 +1,17 @@
-"""gpu_olap_tpu — a TPU-native vectorized SQL query-execution engine.
+"""gpu_olap_tpu — a vectorized SQL query-execution engine on JAX/XLA.
 
 Brand-new implementation of the capability surface of the reference GPU OLAP
 engine (``codebasecomprehension987/gpu-olap-engine``; see SURVEY.md): SQL ->
 logical plan -> rule-based optimizer -> physical plan -> columnar execution,
-with the compute path on JAX/XLA/Pallas over TPU (sort-merge & radix hash join,
-segmented hash aggregation, fused filter, radix-partitioned multi-host shuffle)
-and the runtime around it (catalog, Arrow interchange, buffer arenas,
-double-buffered host feeding) designed TPU-first.
+with the compute path in JAX/XLA on an NVIDIA H100 (sort-merge & lookup joins,
+sort-based grouped aggregation, fused filters, hash-partitioned multi-device
+shuffle) and the runtime around it (catalog, Arrow interchange, buffer arenas,
+double-buffered host feeding).
 """
 
 from .catalog import Catalog
 from .config import EngineConfig
-from .engine import GpuOlapEngine, OlapEngine, TpuOlapEngine
+from .engine import GpuOlapEngine, OlapEngine
 from .executor.result import QueryResult
 from .interop.columnar import Column, ColumnBatch, DType, Field, Schema
 from .sql.parser import parse_sql
@@ -20,6 +20,6 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Catalog", "Column", "ColumnBatch", "DType", "EngineConfig", "Field",
-    "GpuOlapEngine", "OlapEngine", "QueryResult", "Schema", "TpuOlapEngine",
+    "GpuOlapEngine", "OlapEngine", "QueryResult", "Schema",
     "parse_sql",
 ]

@@ -1,11 +1,12 @@
 """Table catalog.
 
-TPU-native analogue of ``gpu-olap-core/src/catalog.rs``: a table registry that
+Analogue of ``gpu-olap-core/src/catalog.rs``: a table registry that
 records schema/location/row-count on load (``catalog.rs:32-73``) and eagerly
 caches tables below a row threshold in memory (``catalog.rs:50``, 10M rows).
 In-memory registration (pandas / Arrow / dict-of-arrays) is first-class since the
 reference's documented ``query_pandas`` path depends on it
-(``examples/python_usage.py:96``).
+(``examples/python_usage.py:96``).  pyarrow is imported only by the Parquet,
+Arrow and pandas paths: dict-of-arrays tables need numpy alone.
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ import dataclasses
 import threading
 from typing import Dict, Iterator, List, Optional
 
-from .interop import arrow as arrow_io
 from .interop.columnar import ColumnBatch, Schema
 from .utils.tracing import get_logger
 
@@ -32,8 +32,8 @@ class TableMetadata:
     row_count: int
     data_cache: Optional[ColumnBatch]  # eagerly cached host batch
     # per-column (min, max) statistics for integer columns — zone-map style
-    # metadata driving the int32 small-key fast path on device (int64 is
-    # emulated on TPU, so narrow keys sort/probe ~2x faster)
+    # metadata driving the int32 small-key fast path on device (narrow keys
+    # move half the bytes through every sort and probe)
     stats: Optional[dict] = None
 
 
@@ -60,6 +60,8 @@ class Catalog:
     # -- registration ------------------------------------------------------
     def load_table(self, name: str, path: str) -> None:
         """Register a Parquet table (``catalog.rs:32-73``)."""
+        from .interop import arrow as arrow_io
+
         schema, row_count = arrow_io.read_parquet_schema(path)
         cache = None
         if row_count < self._cache_threshold:
@@ -93,9 +95,13 @@ class Catalog:
             self._bump(name)
 
     def register_pandas(self, name: str, df) -> None:
+        from .interop import arrow as arrow_io
+
         self.register_batch(name, arrow_io.batch_from_pandas(df))
 
     def register_arrow(self, name: str, table) -> None:
+        from .interop import arrow as arrow_io
+
         self.register_batch(name, arrow_io.batch_from_arrow(table))
 
     # -- accessors (catalog.rs:76-116) ------------------------------------
@@ -113,6 +119,8 @@ class Catalog:
         if meta.data_cache is not None:
             return meta.data_cache
         assert meta.location is not None
+        from .interop import arrow as arrow_io
+
         return arrow_io.read_parquet(meta.location)
 
     def iter_table_chunks(self, name: str, batch_size: int,
@@ -120,6 +128,8 @@ class Catalog:
         """Streamed chunked scan for out-of-core execution."""
         meta = self._meta(name)
         if meta.location is not None and meta.data_cache is None:
+            from .interop import arrow as arrow_io
+
             yield from arrow_io.iter_parquet_chunks(meta.location, batch_size, columns)
             return
         batch = meta.data_cache

@@ -1,6 +1,6 @@
 """Engine entry point.
 
-TPU-native analogue of ``OlapEngine`` (``gpu-olap-core/src/lib.rs:45-79``): owns
+Analogue of ``OlapEngine`` (``gpu-olap-core/src/lib.rs:45-79``): owns
 the catalog + config and drives parse -> optimize -> physical plan -> execute.
 The Python-facing class also provides the documented binding API
 (``GpuOlapEngine`` ctor kwargs, ``query_pandas``, ``query_polars`` —
@@ -215,12 +215,12 @@ class OlapEngine:
     # -- internals ---------------------------------------------------------
     @staticmethod
     def _referenced_tables(physical) -> list:
-        from .plan.physical import TpuTableScan
+        from .plan.physical import PhysTableScan
 
         names = set()
 
         def walk(p):
-            if isinstance(p, TpuTableScan):
+            if isinstance(p, PhysTableScan):
                 names.add(p.table_name)
             for k in p.inputs():
                 walk(k)
@@ -261,14 +261,11 @@ class OlapEngine:
         return self._dist_executor
 
 
-class TpuOlapEngine(OlapEngine):
+class GpuOlapEngine(OlapEngine):
     """Binding-style constructor accepting the reference's kwargs
     (``gpu_olap_py.GpuOlapEngine(max_gpu_memory=..., num_streams=...,
-    use_unified_memory=...)``, README.md:260-270)."""
+    use_unified_memory=...)``, README.md:260-270) — drop-in for code written
+    against the documented reference binding."""
 
     def __init__(self, **kwargs):
         super().__init__(EngineConfig.from_kwargs(**kwargs))
-
-
-# Drop-in alias for code written against the documented reference binding.
-GpuOlapEngine = TpuOlapEngine

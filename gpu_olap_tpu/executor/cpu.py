@@ -4,7 +4,7 @@ The reference executor doubles as a CPU fallback but stubs out scan/join/sort
 (``executor.rs:110-155,255-265,361-370``).  Here the CPU path is a *complete and
 correct* NumPy interpreter over the physical plan — it defines the engine's SQL
 semantics (3-valued logic, null-skipping aggregates, null keys never joining)
-and serves as the parity oracle for the TPU executor, per SURVEY.md §4.
+and serves as the parity oracle for the device executor, per SURVEY.md §4.
 """
 
 from __future__ import annotations
@@ -55,48 +55,48 @@ class CpuExecutor:
         pre = self.leaf_results.get(id(plan))
         if pre is not None:
             return pre
-        if isinstance(plan, P.TpuTableScan):
+        if isinstance(plan, P.PhysTableScan):
             return self._scan(plan)
-        if isinstance(plan, P.TpuFilter):
+        if isinstance(plan, P.PhysFilter):
             return self._filter(plan)
-        if isinstance(plan, P.TpuProjection):
+        if isinstance(plan, P.PhysProjection):
             return self._project(plan)
-        if isinstance(plan, P.TpuHashJoin):
+        if isinstance(plan, P.PhysHashJoin):
             return self._join(plan)
-        if isinstance(plan, P.TpuAggregate):
+        if isinstance(plan, P.PhysAggregate):
             return self._aggregate(plan)
-        if isinstance(plan, P.TpuSort):
+        if isinstance(plan, P.PhysSort):
             return self._sort(plan)
-        if isinstance(plan, P.TpuLimit):
+        if isinstance(plan, P.PhysLimit):
             return self._limit(plan)
-        if isinstance(plan, P.TpuDistinct):
+        if isinstance(plan, P.PhysDistinct):
             return self._distinct(plan)
-        if isinstance(plan, P.TpuUnion):
+        if isinstance(plan, P.PhysUnion):
             return self._union(plan)
         raise NotImplementedError(type(plan).__name__)
 
     # -- scan ----------------------------------------------------------
-    def _scan(self, plan: P.TpuTableScan) -> ColumnBatch:
+    def _scan(self, plan: P.PhysTableScan) -> ColumnBatch:
         batch = self.catalog.get_table_data(plan.table_name).to_numpy()
         if plan.projection is not None:
             batch = batch.select(list(plan.projection))
         return ColumnBatch(plan.schema, batch.columns, batch.num_rows)
 
     # -- filter --------------------------------------------------------
-    def _filter(self, plan: P.TpuFilter) -> ColumnBatch:
+    def _filter(self, plan: P.PhysFilter) -> ColumnBatch:
         batch = self._exec(plan.input)
         mask_col = self.eval_expr(plan.predicate, batch)
         mask = np.asarray(mask_col.data, dtype=bool) & _valid_of(mask_col)
         return _take(batch, np.nonzero(mask)[0])
 
     # -- projection ----------------------------------------------------
-    def _project(self, plan: P.TpuProjection) -> ColumnBatch:
+    def _project(self, plan: P.PhysProjection) -> ColumnBatch:
         batch = self._exec(plan.input)
         cols = [self.eval_expr(e, batch) for e in plan.exprs]
         return ColumnBatch(plan.schema, cols, batch.num_rows)
 
     # -- join ----------------------------------------------------------
-    def _join(self, plan: P.TpuHashJoin) -> ColumnBatch:
+    def _join(self, plan: P.PhysHashJoin) -> ColumnBatch:
         left = self._exec(plan.left)
         right = self._exec(plan.right)
 
@@ -130,7 +130,7 @@ class CpuExecutor:
         return out
 
     # -- aggregate -----------------------------------------------------
-    def _aggregate(self, plan: P.TpuAggregate) -> ColumnBatch:
+    def _aggregate(self, plan: P.PhysAggregate) -> ColumnBatch:
         batch = self._exec(plan.input)
         n = batch.num_rows
 
@@ -237,7 +237,7 @@ class CpuExecutor:
         raise NotImplementedError(spec.func)
 
     # -- sort / limit / distinct --------------------------------------
-    def _sort(self, plan: P.TpuSort) -> ColumnBatch:
+    def _sort(self, plan: P.PhysSort) -> ColumnBatch:
         batch = self._exec(plan.input)
         perm = np.arange(batch.num_rows)
         for key in reversed(plan.keys):
@@ -255,18 +255,18 @@ class CpuExecutor:
             perm = perm[: plan.limit]
         return _take(batch, perm)
 
-    def _limit(self, plan: P.TpuLimit) -> ColumnBatch:
+    def _limit(self, plan: P.PhysLimit) -> ColumnBatch:
         batch = self._exec(plan.input)
         start = plan.offset
         stop = None if plan.limit is None else start + plan.limit
         return _take(batch, np.arange(batch.num_rows)[start:stop])
 
-    def _distinct(self, plan: P.TpuDistinct) -> ColumnBatch:
+    def _distinct(self, plan: P.PhysDistinct) -> ColumnBatch:
         batch = self._exec(plan.input)
         _, rep_idx, _ = _factorize(list(batch.columns), batch.num_rows)
         return _take(batch, np.sort(rep_idx))
 
-    def _union(self, plan: P.TpuUnion) -> ColumnBatch:
+    def _union(self, plan: P.PhysUnion) -> ColumnBatch:
         """UNION ALL: concatenate children by column position (dictionaries
         re-encoded into a shared sorted union dictionary)."""
         batches = [self._exec(c) for c in plan.children]
@@ -616,7 +616,7 @@ def _equi_join_indices(lkeys: List[Column], rkeys: List[Column], join_type: str)
     lcode = inv[: len(lmat)]
     rcode = inv[len(lmat):]
 
-    # sort right codes, binary-search from left (sort-merge, the TPU design too)
+    # sort right codes, binary-search from left (sort-merge, the device design too)
     rorder = np.argsort(rcode[rvalid], kind="stable")
     rrows = np.nonzero(rvalid)[0][rorder]
     rsorted = rcode[rvalid][rorder]

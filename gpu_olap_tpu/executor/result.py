@@ -7,7 +7,6 @@ Matches the documented reference result surface: ``.to_pandas()``
 
 from __future__ import annotations
 
-from ..interop import arrow as arrow_io
 from ..interop.columnar import ColumnBatch
 
 
@@ -39,9 +38,13 @@ class QueryResult:
         return self._batch
 
     def to_arrow(self):
+        from ..interop import arrow as arrow_io  # pyarrow only when asked
+
         return arrow_io.batch_to_arrow(self._batch)
 
     def to_pandas(self):
+        from ..interop import arrow as arrow_io
+
         return arrow_io.batch_to_pandas(self._batch)
 
     def to_pydict(self):

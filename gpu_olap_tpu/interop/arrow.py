@@ -1,6 +1,6 @@
 """Arrow / pandas interchange.
 
-TPU-native analogue of ``arrow-interop/src/record_batch_convert.rs``: every Arrow
+Analogue of ``arrow-interop/src/record_batch_convert.rs``: every Arrow
 numeric type is widened to int64/float64 (``:35-100``), timestamps/dates become
 int64 (``column_buffer.rs:24-47``), and strings are dictionary-encoded (we keep a
 real dictionary instead of the reference's lossy FNV-1a hash at ``:93-97,123-130``).

@@ -1,6 +1,6 @@
 """Columnar core: logical dtypes, schema, and the in-memory ColumnBatch.
 
-TPU-native analogue of the reference's ``arrow-interop`` crate
+Analogue of the reference's ``arrow-interop`` crate
 (``column_buffer.rs:8-110``, ``schema_utils.rs:4-59``).  Key differences by design:
 
 * Everything is widened to 8-byte types for device execution exactly as the
@@ -184,7 +184,7 @@ class ColumnBatch:
     """A batch of rows in SoA layout — the engine's unit of exchange.
 
     Equivalent role to Arrow ``RecordBatch`` inside the reference executor, but the
-    arrays may live on TPU (jax.Array) or host (numpy).
+    arrays may live on the device (jax.Array) or host (numpy).
     """
 
     def __init__(self, schema: Schema, columns: Sequence[Column], num_rows: Optional[int] = None):

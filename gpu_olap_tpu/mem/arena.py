@@ -2,7 +2,7 @@
 
 The reference pools GPU memory in fixed size classes to avoid cudaMalloc churn
 (``slab_allocator.rs:24-130``: smallest class >= size, O(1) free-list pop,
-bounded slabs per class).  On TPU, XLA owns raw HBM allocation, so the design
+bounded slabs per class).  Under JAX, XLA owns raw HBM allocation, so the design
 point shifts (SURVEY.md §2.3): what must be pooled is *shapes* — reusing
 fixed-shape donated device buffers avoids both recompiles and realloc churn.
 The arena hands out bucket-shaped host staging buffers and tracks device-side

@@ -1,9 +1,10 @@
-"""Sort-based grouped aggregation — the TPU-native hash-aggregate.
+"""Sort-based grouped aggregation — the engine's hash-aggregate.
 
 The reference's CUDA design is an atomicAdd shared-memory hash table
-(``aggregate_kernel.rs:1-8``, ``join_kernels.cuh:216-240``).  TPUs have no such
-atomics — and XLA's scatter (the obvious replacement) serializes on duplicate
-indices — so the redesign is fully *scatter-free*:
+(``aggregate_kernel.rs:1-8``, ``join_kernels.cuh:216-240``).  This design is
+fully *scatter-free* — a choice made for an accelerator whose scatters
+serialized on duplicate indices; whether a scatter-add or hash aggregation
+beats it on the H100 is still to measure:
 
 1. lexicographic ``lax.sort`` of the key columns (multi-key, nulls-as-groups);
 2. run boundaries from sorted-key adjacency; group id = prefix sum of flags;
@@ -42,7 +43,6 @@ from ..utils.jaxenv import ensure_jax
 jax = ensure_jax()
 import jax.numpy as jnp  # noqa: E402
 
-from ..utils.metrics import GLOBAL_METRICS  # noqa: E402
 from .dtypes import INT64_MAX, INT64_MIN, key_code, key_fill  # noqa: E402
 
 
@@ -89,7 +89,6 @@ def groupby_aggregate(
     max_groups: int,
     n_rows: Optional[int] = None,
     prefix_rows: Optional[int] = None,
-    allow_pallas: bool = True,
 ):
     """Grouped aggregation over padded columns.
 
@@ -224,7 +223,7 @@ def groupby_aggregate(
                 if valid is not None:
                     mv = jnp.where(valid, mv, jnp.asarray(0, jnp.int32))
             elif (spec.get("sum_f64_ok") and np.dtype(acc).kind in "iu"):
-                # stats-proven exact in f64 (native cumsum vs emulated int64)
+                # stats-proven exact in f64
                 mv = values.astype(jnp.float64)
                 if valid is not None:
                     mv = jnp.where(valid, mv, 0.0)
@@ -276,21 +275,15 @@ def groupby_aggregate(
         need_perm = True
         plans.append(("fallback", None))
 
-    seg = _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
-                              need_perm, plans, aggs, static_prefix, n,
-                              max_groups, allow_pallas)
-    if seg is not None:
-        return seg
-
     operands = key_ops + ride_ops + payloads
     if need_perm:
         operands = operands + [arange32]
     num_keys = len(key_ops) + len(ride_ops)
-    # unstable: XLA's stable sort rides a hidden tie-break iota through every
-    # merge pass (measured 518 -> 356 ms on 2x int32 at 100M rows on v5e).
+    # unstable: XLA's stable sort may ride a hidden tie-break iota through
+    # every pass, and nothing here needs stability.
     # Payload order within equal key tuples is aggregation-invariant here
     # (sums/counts are segment totals; the perm payload feeds a segmented
-    # min/max, also order-free).  Caveat (ADVICE r4 #3): for FLOAT payloads
+    # min/max, also order-free).  Caveat: for FLOAT payloads
     # "invariant" means exact up to summation ORDER — f64 SUM/AVG accumulate
     # in whatever tie order this compiled program produced, which can differ
     # from the stable build by rounding.  Results stay deterministic per
@@ -451,119 +444,6 @@ def groupby_aggregate(
             perm = sorted_ops[-1]
             results.append(_agg_one_fallback(spec, perm, gid, in_prefix,
                                              starts, ends, n))
-    return group_codes, results, n_groups, overflow
-
-
-def _maybe_seg_agg_path(key_ops, ride_ops, ride_null_slot, payloads,
-                        need_perm, plans, aggs, static_prefix, n,
-                        max_groups: int, allow_pallas: bool):
-    """Pallas fused post-sort path (ops/pallas/seg_agg.py) for the hot shape:
-
-    ONE null-free int32 group key (pads, if any, already sentinel-masked to
-    INT32_MAX by the static-prefix branch — zone-map headroom proves no real
-    key collides) and aggregates that all ride the sort: COUNT(*), plus
-    SUM/MIN/MAX/AVG/COUNT over one null-free int32 argument.  One
-    ``lax.sort`` + one Pallas pass replaces the whole XLA post-sort pipeline
-    (boundary-compaction sort, 64-bit cumsums, gathers) — the TPU answer to
-    the reference's shared-memory hash aggregate (``join_kernels.cuh:216-240``).
-
-    Returns the standard (group_codes, results, n_groups, overflow) tuple or
-    None when the shape doesn't match (caller falls through to XLA).
-    """
-    if not allow_pallas or need_perm:
-        return None
-    if len(key_ops) != 1 or key_ops[0].dtype != jnp.int32:
-        return None
-    from .pallas.seg_agg import SB, seg_agg_sorted_i32
-
-    if n < SB:
-        return None  # below one superblock XLA is fine; skip kernel overhead
-    pad = (-n) % SB
-    if pad and static_prefix is None:
-        # rounding up requires appending INT32_MAX sentinel rows after the
-        # sort; only the static-prefix branch proves no real key collides
-        return None
-    k0 = key_ops[0]
-    if len(ride_ops) == 1 and not payloads:
-        # ride shape: MIN/MAX present, everything rides the (key, value) sort
-        if ride_null_slot is not None or ride_ops[0].dtype != jnp.int32:
-            return None
-        if any(kind not in ("size", "primary") for kind, _ in plans):
-            return None
-        val_lane = ride_ops[0]
-    elif not ride_ops and len(payloads) == 1:
-        # payload shape: SUM over one null-free int32 argument (+ COUNT(*))
-        if payloads[0].dtype != jnp.int32:
-            return None
-        if any(kind not in ("size", "sum") or
-               (kind == "sum" and slot != (0, None))
-               for kind, slot in plans):
-            return None
-        val_lane = payloads[0]
-    elif not ride_ops and not payloads \
-            and all(kind == "size" for kind, _ in plans):
-        # COUNT(*)-only / DISTINCT: no value lane — reuse the sorted keys as
-        # the value lane (trivially ascending within each group)
-        val_lane = None
-    else:
-        return None
-
-    if val_lane is None:
-        (sk,) = jax.lax.sort((k0,), num_keys=1, is_stable=False)
-        sv = sk
-    else:
-        # in-group order is free for SUM, so the payload can always serve as
-        # a second sort key; for the ride shape it is one by design.
-        # unstable: total order over both operands makes stability a no-op,
-        # and XLA's stable lowering costs a hidden iota operand per pass
-        sk, sv = jax.lax.sort((k0, val_lane), num_keys=2, is_stable=False)
-    if pad:
-        # sentinel pads sort last by construction: appending keeps sortedness
-        sk = jnp.concatenate(
-            [sk, jnp.full(pad, np.iinfo(np.int32).max, jnp.int32)])
-        sv = jnp.concatenate([sv, jnp.zeros(pad, jnp.int32)])
-
-    interpret = jax.default_backend() != "tpu"
-    key_g, cnt_g, sum64, mn_g, mx_g, ng32 = seg_agg_sorted_i32(
-        sk, sv, max_groups, interpret)
-    # pads (when present) form exactly one trailing sentinel group
-    has_sentinel = (static_prefix is not None and static_prefix < n) or pad > 0
-    n_groups = (ng32 - (1 if has_sentinel else 0)).astype(jnp.int64)
-    overflow = n_groups > max_groups
-
-    g_idx = jnp.arange(max_groups, dtype=jnp.int32)
-    exists = g_idx < n_groups
-    kg = key_g[:max_groups]
-    fill = jnp.asarray(key_fill(kg.dtype), dtype=kg.dtype)
-    group_codes = [(jnp.where(exists, kg, fill), None)]
-    sizes64 = jnp.where(exists, cnt_g[:max_groups].astype(jnp.int64),
-                        jnp.zeros((), jnp.int64))
-
-    results = []
-    for spec, (kind, _slot) in zip(aggs, plans):
-        acc = spec["acc_dtype"]
-        if kind == "size" or spec["func"] == "count":
-            results.append((sizes64, None))
-            continue
-        func = spec["func"]
-        if func in ("min", "max"):
-            out = (mn_g if func == "min" else mx_g)[:max_groups]
-            out = jnp.where(exists, out, jnp.zeros((), out.dtype))
-            # int32 stays int32 on the wire (the host link widens), matching
-            # the XLA primary path
-            if np.dtype(acc) != np.dtype(np.int64):
-                out = out.astype(acc)
-            results.append((out, None))
-        elif func == "sum":
-            s = jnp.where(exists, sum64[:max_groups], jnp.zeros((), jnp.int64))
-            if np.dtype(acc) != np.dtype(np.int64):
-                s = s.astype(acc)  # exact: int32 inputs sum exactly in int64
-            results.append((s, None))
-        else:  # avg — exact int64 sum / exact count in f64
-            a = (sum64[:max_groups].astype(jnp.float64)
-                 / jnp.maximum(sizes64, 1).astype(jnp.float64))
-            results.append((jnp.where(exists, a, 0.0), None))
-    GLOBAL_METRICS.bump("pallas_seg_agg_trace")
     return group_codes, results, n_groups, overflow
 
 

@@ -21,10 +21,10 @@ def order_code(data, np_kind: str):
     """Map a column to a sort operand whose ascending order == SQL ordering.
 
     Floats stay in float space — ``lax.sort``'s total-order comparator handles
-    f64 natively, and the TPU X64-rewrite pass cannot lower f64<->s64
-    bitcasts.  Ints are clipped by 2 so descending negation and null sentinels
-    cannot overflow (same contract as the CPU oracle).  int32 operands (the
-    small-key fast path — int64 is emulated on TPU) keep their width."""
+    f64 natively, so no f64<->s64 bitcast is needed.  Ints are clipped by 2 so
+    descending negation and null sentinels cannot overflow (same contract as
+    the CPU oracle).  int32 operands (the small-key fast path) keep their
+    width."""
     if np_kind == "f":
         return data.astype(jnp.float64)
     if data.dtype == jnp.int32:
@@ -39,8 +39,7 @@ def key_code(data, validity, np_kind: str):
 
     The operand keeps its own space (int64 for ints/codes, float64 for floats
     with -0.0 normalized and NaN nulled) — sort/searchsorted/boundary
-    comparisons are exact in either space, and no bitcast is needed (the TPU
-    X64-rewrite cannot lower f64<->s64 bitcasts).  Nullness is a separate flag
+    comparisons are exact in either space, and no bitcast is needed.  Nullness is a separate flag
     array so every value stays a legal key (the reference sentinel-encodes and
     loses this, ``record_batch_convert.rs:102-110``)."""
     if np_kind == "f":

@@ -1,7 +1,7 @@
 """Filter kernels.
 
 The reference's JIT'd filter writes a bitmask then compacts via prefix-sum +
-scatter (``filter_kernel.rs:1-5``, ``codegen.rs:36-47``).  On TPU the predicate
+scatter (``filter_kernel.rs:1-5``, ``codegen.rs:36-47``).  Here the predicate
 is traced into the same XLA program as its consumers, so the mask *fuses* into
 downstream segment reductions and joins for free (the BASELINE "predicate
 fusion" requirement) — the engine therefore carries row-validity masks instead
@@ -33,8 +33,9 @@ def compaction_indices(mask: jnp.ndarray):
     """Stable compaction permutation: returns (gather_idx, count).
 
     ``gather_idx[i]`` is the source row for dense slot i (slots >= count hold
-    the masked-out rows).  Implemented as a sort by (inverted mask, position)
-    — scatter-free, since XLA scatter serializes on TPU.  The position rides
+    the masked-out rows).  Implemented as a sort by (inverted mask, position),
+    scatter-free (a choice made on the previous accelerator, to re-measure
+    against a cumsum + scatter on the H100).  The position rides
     as a second KEY with is_stable=False: total order == stable semantics
     without XLA's hidden tie-break iota operand per merge pass."""
     n = mask.shape[0]

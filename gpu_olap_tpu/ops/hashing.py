@@ -1,7 +1,7 @@
 """Device hash functions + radix partitioning.
 
 The reference hashes with the MurmurHash3 finalizer and partitions on 8 radix
-bits with atomicAdd scatter (``join_kernels.cuh:26-41,45-76``).  The TPU-native
+bits with atomicAdd scatter (``join_kernels.cuh:26-41,45-76``).  The engine's
 partition pass is the same hash but atomics-free: histogram (segment_sum) +
 exclusive prefix sum + vectorized rank-scatter — identical 3-step structure to
 the radix-sort pass recipe (``sort_kernel.rs:41-47``).  The same function is
@@ -20,7 +20,7 @@ def hash64(x: jnp.ndarray) -> jnp.ndarray:
     """MurmurHash3-style 64-bit finalizer (fmix64) on int64 keys.
 
     Same avalanche structure the reference uses (``join_kernels.cuh:26-41``);
-    computed in uint64 (XLA emulates 64-bit on TPU with 32-bit pairs)."""
+    computed in uint64."""
     h = x.astype(jnp.uint64)
     h = h ^ (h >> 33)
     h = h * jnp.uint64(0xFF51AFD7ED558CCD)
@@ -31,8 +31,8 @@ def hash64(x: jnp.ndarray) -> jnp.ndarray:
 
 
 def hash32(x: jnp.ndarray) -> jnp.ndarray:
-    """32-bit MurmurHash3 finalizer over folded int64 keys — all-native ops
-    (64-bit multiplies are emulated on TPU), avalanche quality preserved by
+    """32-bit MurmurHash3 finalizer over folded int64 keys — 32-bit
+    multiplies only, avalanche quality preserved by
     folding the high word in (``join_kernels.cuh:26-33`` is the 32-bit
     variant the reference uses for int32 keys)."""
     u = x.astype(jnp.uint32) ^ (x >> 32).astype(jnp.uint32)

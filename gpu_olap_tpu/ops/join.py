@@ -1,8 +1,10 @@
-"""Equi-join kernels — TPU-native redesign of the CUDA radix hash join.
+"""Equi-join kernels — a sort-based redesign of the CUDA radix hash join.
 
 The reference builds chained hash tables with ``atomicExch`` and probes with
-chain walks + ``atomicAdd`` match counters (``join_kernels.cuh:80-166``).  TPUs
-have no global atomics, so the design (SURVEY.md §7) is sort-based:
+chain walks + ``atomicAdd`` match counters (``join_kernels.cuh:80-166``).  This
+design (SURVEY.md §7) avoids global atomics and is sort-based — chosen for an
+accelerator without them; the H100 has them, so a hash join is a candidate
+to measure against it:
 
 * build side sorted by key (``lax.sort``), probe side binary-searched
   (``searchsorted`` with the sort-based method = co-ranking merge — exactly the
@@ -74,8 +76,11 @@ def densify_keys(
     for op in res[:-1]:
         newflag = newflag | jnp.concatenate([jnp.ones(1, dtype=bool), op[1:] != op[:-1]])
     code_sorted = jnp.cumsum(newflag.astype(jnp.int64))
-    # inverse permutation by re-sorting (scatter-free)
-    _, dense = jax.lax.sort((perm, code_sorted), num_keys=1, is_stable=False)
+    # inverse permutation: one scatter to unique positions.  (The previous
+    # re-sort keyed by ``perm`` trips XLA's GPU permutation-sort rewrite,
+    # which emits an s32/s64-mismatched scatter the HLO verifier rejects.)
+    dense = jnp.zeros(n, jnp.int64).at[perm].set(code_sorted,
+                                                 unique_indices=True)
     return dense[:nl], dense[nl:]
 
 
@@ -137,7 +142,7 @@ def probe_ranges_merge(build_code, build_invalid, probe_code, probe_invalid,
 
     ``fold_range``: optional (lo, hi) zone-map bound over BOTH sides' valid
     keys; when 2*(hi-lo)+1 has int32 headroom the merged key+tag lane stays
-    int32 (int64 lanes sort ~2x slower than int32 on TPU)."""
+    int32 (half the bytes per sort pass)."""
     nb = build_code.shape[0]
     npr = probe_code.shape[0]
     n = nb + npr
@@ -204,10 +209,8 @@ def probe_counts_sorted(build_code, build_invalid, probe_code, probe_invalid,
                         fold_range=None, payloads=()):
     """Per-row match multiplicities left IN SORTED ORDER — for global
     aggregates that reduce over matched pairs, the probe-order restore sort
-    of ``probe_ranges_merge`` (1 key + 2 payload lanes, ~1.05 s at 200M
-    rows on v5e) is pure waste: a reduction is order-free.  Round-5
-    measurement (scripts/probe_join_tax.py): tagged co-sort 753 ms, engine
-    join exec 1548 ms — this path removes most of the difference.
+    of ``probe_ranges_merge`` (1 key + 2 payload lanes) is pure waste: a
+    reduction is order-free.
 
     ``payloads``: optional (nb+npr,)-length lanes in [build..., probe...]
     concat order that ride the sort — decomposable pair aggregates
@@ -330,7 +333,7 @@ def direct_probe(sorted_keys, sorted_rows, n_build_valid, kmin: int, kmax: int,
     per-key [lo, hi) match ranges are precomputed into a dense offset table
     and probing is two gathers per row instead of a binary search.
 
-    This is the TPU analogue of the reference's O(1) hash-table probe
+    This is the engine's analogue of the reference's O(1) hash-table probe
     (``join_kernels.cuh:115-166``) — direct addressing instead of hashing, so
     it is exact and collision-free.  ``kmin``/``kmax`` are static (host)
     bounds from catalog statistics."""
@@ -356,13 +359,13 @@ def lookup_slots(build_code, build_invalid, kmin: int, kmax: int,
     slot per probe row; inr bool [n_probe] in-range-and-valid).  The caller
     gathers through dense_row — or through per-column dense *value* tables
     derived from it, which lets a sentinel value double as the match flag so
-    a single gather per probe row yields both value and matchedness (TPU
-    gathers cost ~7.8 ns/element flat, so gather count is the join's cost).
+    a single gather per probe row yields both value and matchedness (one
+    probe-sized gather instead of two).
 
     The dense fill is itself the scatter-free merge probe: slot keys
-    [kmin, kmax] merge against the build keys (``jnp.repeat``'s
-    total_repeat_length lowering hides a scatter-add, which serializes on
-    TPU), then one build-sized gather materializes the row table."""
+    [kmin, kmax] merge against the build keys (instead of ``jnp.repeat``,
+    whose total_repeat_length lowering hides a scatter-add), then one
+    build-sized gather materializes the row table."""
     nb = build_code.shape[0]
     span = int(kmax) - int(kmin) + 1
     _, srow, _ = build_sorted(build_code, build_invalid)
@@ -384,7 +387,7 @@ def lookup_slots(build_code, build_invalid, kmin: int, kmax: int,
 def dense_probe(kmin: int, kmax: int, probe_code, probe_invalid):
     """Slot positions + in-range flags for probing dense [kmin, kmax] tables.
 
-    Probe-side arithmetic stays int32 where possible (int64 is emulated):
+    Probe-side arithmetic stays int32 where possible (half the bytes):
     range-test BEFORE subtracting so no intermediate can overflow."""
     span = int(kmax) - int(kmin) + 1
     if probe_code.dtype == jnp.int32 and span <= np.iinfo(np.int32).max:
@@ -406,7 +409,7 @@ def lookup_join(build_code, build_invalid, kmin: int, kmax: int,
     stats-bounded range, the build side compiles into a dense key->row table
     (sort + repeat-fill, scatter-free) and probing is one gather per row —
     no searchsorted, no match expansion (output shape == probe shape).
-    This is the TPU equivalent of an O(1)-probe hash table with a perfect
+    This is the engine's equivalent of an O(1)-probe hash table with a perfect
     hash (the identity over [kmin, kmax]).
 
     Returns (ri, matched): per probe row the matching build row (or -1)."""
@@ -515,113 +518,3 @@ def outer_extend(join_type: str, li, ri, out_valid, total,
     # themselves; overall validity is just the concatenation
     out_valid = jnp.concatenate(parts_valid)
     return li, ri, out_valid, total
-
-
-def inner_join_stream(lcode, linv, rcode, rinv, capacity: int,
-                      fold_range, probe_payloads=(), emit_key: bool = False,
-                      need_ri: bool = True, interpret: bool = False):
-    """Inner equi-join emitting pairs in merge-sorted order — the Pallas
-    streaming pipeline (round-3 redesign of the radix hash join's emission,
-    ``join_kernels.cuh:115-166``).
-
-    Measured on TPU v5e, XLA gathers run 40-78M elements/s regardless of
-    index locality, so every capacity-sized gather is designed OUT:
-
-    * probe row ids, the join key, and int32 probe payload columns ride the
-      tagged co-sort as operands and come out of the expansion as FILLS;
-    * the probe-order restore sort and ``jnp.repeat``'s serialized
-      scatter-add are gone (records stream through the compact + expand
-      butterfly kernels);
-    * only ``need_ri`` (a non-key build column is referenced) still pays a
-      capacity-sized gather for build row ids.
-
-    Requires int32-foldable keys (``fold_range``); sizes self-pad to the
-    2048-row kernel granularity.  Returns a dict:
-      li (int32 fill), ri (int32 gather | None), key (int32 fill | None),
-      payloads ([int32 fills]), out_valid, total (i64), overflow.
-    """
-    from .pallas.join_stream import SB, expand_fill_i32, stream_compact_i32
-
-    nb = rcode.shape[0]
-    npr = lcode.shape[0]
-    n = nb + npr
-    npad = (-n) % SB
-    capacity = -(-capacity // SB) * SB
-    lo32 = np.int32(fold_range[0])
-    i32max = np.int32(np.iinfo(np.int32).max)
-
-    # ---- tagged co-sort: ONE int32 key lane + int32 payload lanes --------
-    key = (jnp.concatenate([rcode, lcode]) - lo32) * 2
-    key = key + jnp.concatenate([
-        jnp.zeros(nb, dtype=jnp.int32), jnp.ones(npr, dtype=jnp.int32)])
-    inv = jnp.concatenate([rinv, linv])
-    key = jnp.where(inv, i32max, key)
-    rowid = jnp.concatenate([jnp.arange(nb, dtype=jnp.int32),
-                             jnp.arange(npr, dtype=jnp.int32)])
-    zb = jnp.zeros(nb, dtype=jnp.int32)
-    lanes = [key, rowid] + [jnp.concatenate([zb, p]) for p in probe_payloads]
-    if npad:
-        pads = [jnp.full(npad, i32max, jnp.int32)] + [
-            jnp.zeros(npad, jnp.int32)] * (len(lanes) - 1)
-        lanes = [jnp.concatenate([a, p]) for a, p in zip(lanes, pads)]
-    sorted_lanes = jax.lax.sort(tuple(lanes), num_keys=2, is_stable=False)
-    key_s, rowid_s = sorted_lanes[0], sorted_lanes[1]
-    payload_s = sorted_lanes[2:]
-
-    valid_e = key_s != i32max
-    is_build = ((key_s & 1) == 0) & valid_e
-    is_probe = ((key_s & 1) == 1) & valid_e
-    run_key = key_s >> 1
-    newflag = jnp.concatenate([jnp.ones(1, dtype=bool),
-                               run_key[1:] != run_key[:-1]])
-    cb = jnp.cumsum(is_build.astype(jnp.int32))
-    run_base = jax.lax.cummax(
-        jnp.where(newflag, cb - is_build.astype(jnp.int32), jnp.int32(-1)))
-    pm = jnp.where(is_probe, cb - run_base, 0)     # matches per probe elem
-    starts = jnp.cumsum(pm) - pm                   # int32: capacity < 2^31
-    total = jnp.sum(pm.astype(jnp.int64))
-    overflow = total > capacity
-
-    # ---- compact match records (+ build rows when ri is needed) ----------
-    rec_streams = [starts, rowid_s]
-    if emit_key:
-        rec_streams.append(run_key + lo32)
-    if need_ri:
-        rec_streams.append(run_base)               # lo: build run start
-    rec_streams.extend(payload_s)
-    compacted, n_rec = stream_compact_i32(
-        (pm > 0).astype(jnp.int32), rec_streams, npr, interpret)
-    if need_ri:
-        (b_rows,), _nbv = stream_compact_i32(
-            is_build.astype(jnp.int32), [rowid_s], nb, interpret)
-
-    # sentinel-mask garbage records past n_rec and give the record arrays
-    # the expand kernel's 2304-slot read-window headroom
-    rec_start = compacted[0]
-    m_rec = rec_start.shape[0]
-    ridx = jnp.arange(m_rec, dtype=jnp.int32)
-    rec_start = jnp.where(ridx < n_rec, rec_start, i32max)
-    rest = list(compacted[1:])
-    if m_rec % SB != 0 or m_rec - 2304 < 0:
-        pad = (-m_rec) % SB + (SB * 2 if m_rec - 2304 < 0 else 0)
-        rec_start = jnp.concatenate(
-            [rec_start, jnp.full(pad, i32max, jnp.int32)])
-        rest = [jnp.concatenate([r, jnp.zeros(pad, jnp.int32)])
-                for r in rest]
-
-    fills = expand_fill_i32(rec_start, rest, capacity, interpret)
-    off, pid_f = fills[0], fills[1]
-    pos = 2
-    key_f = None
-    if emit_key:
-        key_f = fills[pos]
-        pos += 1
-    ri = None
-    if need_ri:
-        bpos = jnp.clip(fills[pos] + off, 0, max(nb - 1, 1))
-        ri = b_rows[bpos]
-        pos += 1
-    payload_f = fills[pos:]
-    out_valid = jnp.arange(capacity, dtype=jnp.int64) < total
-    return {"li": pid_f, "ri": ri, "key": key_f, "payloads": payload_f,
-            "out_valid": out_valid, "total": total, "overflow": overflow}

@@ -1,8 +1,8 @@
-"""Multi-key ORDER BY — TPU-native radix-sort analogue.
+"""Multi-key ORDER BY — the radix-sort analogue.
 
 The reference specifies an 8-pass LSB radix sort of (key, row_id) pairs with a
-descending flag (``sort_kernel.rs:12-32``).  On TPU, ``lax.sort`` (XLA's
-bitonic/merge sort) over multiple int64 order-code operands plays that role:
+descending flag (``sort_kernel.rs:12-32``).  Here ``lax.sort`` over multiple
+int64 order-code operands plays that role:
 one fused sort delivers multi-key lexicographic ordering with per-key
 ASC/DESC and NULLS FIRST/LAST, returning a row permutation.
 """

@@ -49,52 +49,52 @@ class NotDistributable(Exception):
 
 @dataclasses.dataclass
 class _ScanPipeline:
-    scan: P.TpuTableScan
+    scan: P.PhysTableScan
     middle: List[P.PhysicalPlan]  # bottom-up filters/projections
 
 
 def _strip_fp(node: P.PhysicalPlan) -> P.PhysicalPlan:
-    while isinstance(node, (P.TpuFilter, P.TpuProjection)):
+    while isinstance(node, (P.PhysFilter, P.PhysProjection)):
         node = node.input
     return node
 
 
 def _match_scan_pipeline(node: P.PhysicalPlan) -> _ScanPipeline:
     middle: List[P.PhysicalPlan] = []
-    while isinstance(node, (P.TpuFilter, P.TpuProjection)):
+    while isinstance(node, (P.PhysFilter, P.PhysProjection)):
         middle.append(node)
         node = node.input
-    if not isinstance(node, P.TpuTableScan):
+    if not isinstance(node, P.PhysTableScan):
         raise NotDistributable(type(node).__name__)
     return _ScanPipeline(node, list(reversed(middle)))
 
 
 @dataclasses.dataclass
 class _DistPlan:
-    aggregate: P.TpuAggregate
+    aggregate: P.PhysAggregate
     agg_middle: List[P.PhysicalPlan]   # filters/projections between agg and join
-    join: Optional[P.TpuHashJoin]
+    join: Optional[P.PhysHashJoin]
     left: Optional[_ScanPipeline]
     right: Optional[_ScanPipeline]
     single: Optional[_ScanPipeline]
 
 
 def match_distributable(plan: P.PhysicalPlan) -> _DistPlan:
-    if not isinstance(plan, P.TpuAggregate):
+    if not isinstance(plan, P.PhysAggregate):
         raise NotDistributable(type(plan).__name__)
     if any(a.distinct for a in plan.aggs) and \
-            isinstance(_strip_fp(plan.input), P.TpuHashJoin):
+            isinstance(_strip_fp(plan.input), P.PhysHashJoin):
         # DISTINCT over a join output would need a SECOND row shuffle by
         # group key after the join; scan pipelines handle it (see
         # _run_distinct_groupby), joins fall back to single-device
         raise NotDistributable("DISTINCT aggregate over distributed join")
     middle: List[P.PhysicalPlan] = []
     node = plan.input
-    while isinstance(node, (P.TpuFilter, P.TpuProjection)):
+    while isinstance(node, (P.PhysFilter, P.PhysProjection)):
         middle.append(node)
         node = node.input
     middle = list(reversed(middle))
-    if isinstance(node, P.TpuHashJoin):
+    if isinstance(node, P.PhysHashJoin):
         if node.join_type != "inner" or node.residual is not None:
             raise NotDistributable("non-inner or residual join")
         if len(node.left_keys) != 1:
@@ -124,7 +124,7 @@ class DistributedExecutor:
         self._compiled: Dict[tuple, tuple] = {}
 
     # -- table sharding ----------------------------------------------------
-    def _sharded_table(self, scan: P.TpuTableScan):
+    def _sharded_table(self, scan: P.PhysTableScan):
         host = self.catalog.get_table_data(scan.table_name).to_numpy()
         n = host.num_rows
         per_dev = -(-max(n, 1) // self.ndev)
@@ -176,14 +176,14 @@ class DistributedExecutor:
         would ship every row, so it stays on the host path."""
         node = plan
         k = None
-        while isinstance(node, P.TpuProjection):
+        while isinstance(node, P.PhysProjection):
             node = node.input
-        if isinstance(node, P.TpuLimit):
+        if isinstance(node, P.PhysLimit):
             if node.limit is None:
                 raise NotDistributable("OFFSET without LIMIT")
             k = node.offset + node.limit
             node = node.input
-        if not isinstance(node, P.TpuSort):
+        if not isinstance(node, P.PhysSort):
             raise NotDistributable(type(node).__name__)
         sort = node
         if sort.limit is not None:
@@ -622,7 +622,7 @@ class DistributedExecutor:
         key = dp.join.left_keys[0]
         if not isinstance(key, P.ColumnRef):
             return np.zeros(0, np.int64)
-        if any(not isinstance(m, P.TpuFilter) for m in dp.left.middle):
+        if any(not isinstance(m, P.PhysFilter) for m in dp.left.middle):
             return np.zeros(0, np.int64)
         host = self.catalog.get_table_data(dp.left.scan.table_name).to_numpy()
         cat_idx = (key.index if dp.left.scan.projection is None
@@ -996,7 +996,7 @@ def _apply_middle(interp, middle, batch):
     from ..ops import filter as filter_ops
 
     for op in middle:
-        if isinstance(op, P.TpuFilter):
+        if isinstance(op, P.PhysFilter):
             data, valid, _ = interp.eval_expr(op.predicate, batch)
             mask = filter_ops.combine_mask(batch.row_valid, data, valid)
             batch = DevBatch(op.schema, batch.cols, batch.capacity, mask)
@@ -1009,7 +1009,7 @@ def _apply_middle(interp, middle, batch):
     return batch
 
 
-def _gather_groups(agg: P.TpuAggregate, gkeys, gresults, gvalid) -> ColumnBatch:
+def _gather_groups(agg: P.PhysAggregate, gkeys, gresults, gvalid) -> ColumnBatch:
     from ..executor.device import _decode_key
 
     valid = np.asarray(gvalid)
@@ -1033,12 +1033,12 @@ def _gather_groups(agg: P.TpuAggregate, gkeys, gresults, gvalid) -> ColumnBatch:
 
 def _split_above_aggregate(plan: P.PhysicalPlan) -> Tuple[_DistPlan, bool]:
     """Find the aggregate subtree; report whether operators sit above it."""
-    if isinstance(plan, P.TpuAggregate):
+    if isinstance(plan, P.PhysAggregate):
         return match_distributable(plan), False
     node = plan
     seen_above = False
     while True:
-        if isinstance(node, P.TpuAggregate):
+        if isinstance(node, P.PhysAggregate):
             return match_distributable(node), True
         kids = node.inputs()
         if len(kids) != 1:

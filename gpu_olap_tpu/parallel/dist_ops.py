@@ -1,9 +1,9 @@
 """Distributed operators: shuffle join and shuffle group-by over the mesh.
 
-BASELINE north star: "tables hash-partitioned across TPU hosts, distributed
+BASELINE north star: "tables hash-partitioned across devices, distributed
 shuffle of join/group-by keys, exchange overlapped with probe/aggregate
 compute".  Each operator is one ``shard_map`` program: shuffle (all-to-all over
-ICI) immediately followed by the local sort-based kernel — XLA overlaps the
+the device interconnect, NVLink on H100 hosts) immediately followed by the local sort-based kernel — XLA overlaps the
 collective with the local sort/probe pipeline.
 """
 

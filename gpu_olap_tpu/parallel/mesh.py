@@ -2,8 +2,8 @@
 
 The reference has no distributed backend (NCCL is future work,
 PROJECT_SUMMARY.md:271); BASELINE.json's north star requires one.  The
-TPU-native communication layer is ``jax.sharding.Mesh`` + ``shard_map`` with
-XLA collectives over ICI/DCN — tables hash-partitioned over a 1-D ``hosts``
+communication layer is ``jax.sharding.Mesh`` + ``shard_map`` with XLA
+collectives (NCCL over NVLink on an H100 host) — tables hash-partitioned over a 1-D ``hosts``
 axis, shuffles as all-to-all.
 """
 

@@ -2,10 +2,10 @@
 
 The reference's 256-way radix partition (``join_kernels.cuh:45-76``) becomes,
 one level up, a hash partition of rows over mesh devices with an
-``all_to_all`` exchange (SURVEY.md §2.6: "the TPU analogue of radix
-partitioning").  Implemented with ``shard_map``: each device buckets its local
+``all_to_all`` exchange (SURVEY.md §2.6: radix partitioning lifted to the
+mesh).  Implemented with ``shard_map``: each device buckets its local
 rows by destination (histogram + prefix sum + rank scatter, atomics-free),
-exchanges fixed-capacity bucket blocks over ICI, and unpacks with received
+exchanges fixed-capacity bucket blocks over the interconnect, and unpacks with received
 counts.  Fixed capacities keep shapes static; overflow is reported for
 host-side growth, and skew-aware capacity headroom comes from
 ``skew.recommend_capacity``.

@@ -27,21 +27,9 @@ from ..ops.hashing import partition_of  # noqa: E402
 
 
 def partition_histogram(keys: jnp.ndarray, num_partitions: int) -> jnp.ndarray:
-    """Rows per hash partition (the skew detector's raw signal).
-
-    Large inputs route through the Pallas radix histogram
-    (ops/pallas/partition.py — the TPU analogue of the reference's
-    ``radix_partition_kernel`` histogram phase, ``join_kernels.cuh:45-76``):
-    ``segment_sum`` lowers to scatter-add, which serializes on TPU."""
+    """Rows per hash partition (the skew detector's raw signal): one
+    scatter-add over the destination ids."""
     dest = partition_of(keys, num_partitions)
-    if keys.shape[0] >= 32768 and num_partitions <= 256:
-        from ..ops.pallas.partition import radix_histogram_i32
-        from ..utils.metrics import GLOBAL_METRICS
-
-        GLOBAL_METRICS.bump("pallas_radix_hist_trace")
-        interpret = jax.default_backend() != "tpu"
-        hist = radix_histogram_i32(dest, shift=0, interpret=interpret)
-        return hist[:num_partitions]
     return jax.ops.segment_sum(
         jnp.ones(keys.shape[0], dtype=jnp.int64), dest,
         num_segments=num_partitions,

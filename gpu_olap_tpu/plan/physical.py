@@ -1,7 +1,7 @@
 """Physical plan + planner.
 
-TPU-native analogue of ``gpu-olap-core/src/physical_plan.rs``: the ``Gpu*``
-operator enum (``physical_plan.rs:11-64``) becomes ``Tpu*`` dataclasses, and —
+Analogue of ``gpu-olap-core/src/physical_plan.rs``: the ``Gpu*``
+operator enum (``physical_plan.rs:11-64``) becomes ``Phys*`` dataclasses, and —
 unlike the reference — join and aggregate output schemas are derived for real
 (the reference returns empty schemas, ``physical_plan.rs:250-265``), join key
 extraction handles arbitrary conjunctions of equalities with residual filters
@@ -120,7 +120,7 @@ class PhysicalPlan:
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuTableScan(PhysicalPlan):
+class PhysTableScan(PhysicalPlan):
     table_name: str
     projection: Optional[Tuple[int, ...]]  # indices into the catalog schema
     alias: Optional[str] = None
@@ -130,11 +130,11 @@ class TpuTableScan(PhysicalPlan):
     def _label(self):
         p = f" projection={list(self.projection)}" if self.projection is not None else ""
         f = f" pred={type(self.predicate).__name__}" if self.predicate is not None else ""
-        return f"TpuTableScan: {self.table_name}{p}{f}"
+        return f"PhysTableScan: {self.table_name}{p}{f}"
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuFilter(PhysicalPlan):
+class PhysFilter(PhysicalPlan):
     input: PhysicalPlan
     predicate: PhysExpr
 
@@ -143,7 +143,7 @@ class TpuFilter(PhysicalPlan):
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuProjection(PhysicalPlan):
+class PhysProjection(PhysicalPlan):
     input: PhysicalPlan
     exprs: Tuple[PhysExpr, ...]
 
@@ -155,7 +155,7 @@ JOIN_STRATEGIES = ("broadcast_hash", "radix_hash", "sort_merge")
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuHashJoin(PhysicalPlan):
+class PhysHashJoin(PhysicalPlan):
     left: PhysicalPlan
     right: PhysicalPlan
     left_keys: Tuple[PhysExpr, ...]
@@ -171,11 +171,11 @@ class TpuHashJoin(PhysicalPlan):
         return (self.left, self.right)
 
     def _label(self):
-        return f"TpuHashJoin[{self.strategy}]: {self.join_type}"
+        return f"PhysHashJoin[{self.strategy}]: {self.join_type}"
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuAggregate(PhysicalPlan):
+class PhysAggregate(PhysicalPlan):
     input: PhysicalPlan
     group_exprs: Tuple[PhysExpr, ...]
     aggs: Tuple[AggSpec, ...]
@@ -184,7 +184,7 @@ class TpuAggregate(PhysicalPlan):
         return (self.input,)
 
     def _label(self):
-        return f"TpuAggregate: {len(self.group_exprs)} keys, {len(self.aggs)} aggs"
+        return f"PhysAggregate: {len(self.group_exprs)} keys, {len(self.aggs)} aggs"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,7 +195,7 @@ class PhysSortKey:
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuSort(PhysicalPlan):
+class PhysSort(PhysicalPlan):
     input: PhysicalPlan
     keys: Tuple[PhysSortKey, ...]
     limit: Optional[int] = None  # fused top-k when Sort is directly under Limit
@@ -205,7 +205,7 @@ class TpuSort(PhysicalPlan):
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuLimit(PhysicalPlan):
+class PhysLimit(PhysicalPlan):
     input: PhysicalPlan
     limit: Optional[int]
     offset: int
@@ -215,7 +215,7 @@ class TpuLimit(PhysicalPlan):
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuDistinct(PhysicalPlan):
+class PhysDistinct(PhysicalPlan):
     input: PhysicalPlan
 
     def inputs(self):
@@ -223,7 +223,7 @@ class TpuDistinct(PhysicalPlan):
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuUnion(PhysicalPlan):
+class PhysUnion(PhysicalPlan):
     """UNION ALL: children concatenated by column position; dtypes unified
     at plan time (ints promote to float where mixed)."""
     children: Tuple[PhysicalPlan, ...]
@@ -387,7 +387,7 @@ class _Planner:
         if isinstance(node, L.Filter):
             child = self.plan(node.input)
             pred = lower_expr(node.predicate, child.schema)
-            return TpuFilter(child.schema, child, pred)
+            return PhysFilter(child.schema, child, pred)
         if isinstance(node, L.Join):
             return self._plan_join(node)
         if isinstance(node, L.Aggregate):
@@ -398,16 +398,16 @@ class _Planner:
                 PhysSortKey(lower_expr(k.expr, child.schema), k.ascending, k.nulls_last)
                 for k in node.keys
             )
-            return TpuSort(child.schema, child, keys)
+            return PhysSort(child.schema, child, keys)
         if isinstance(node, L.Limit):
             child = self.plan(node.input)
-            if isinstance(child, TpuSort) and node.offset == 0 and node.limit is not None:
+            if isinstance(child, PhysSort) and node.offset == 0 and node.limit is not None:
                 child = dataclasses.replace(child, limit=node.limit)
-                return TpuLimit(child.schema, child, node.limit, 0)
-            return TpuLimit(child.schema, child, node.limit, node.offset)
+                return PhysLimit(child.schema, child, node.limit, 0)
+            return PhysLimit(child.schema, child, node.limit, node.offset)
         if isinstance(node, L.Distinct):
             child = self.plan(node.input)
-            return TpuDistinct(child.schema, child)
+            return PhysDistinct(child.schema, child)
         if isinstance(node, L.Union):
             return self._plan_union(node)
         raise PlanError(f"Cannot plan {type(node).__name__}")
@@ -432,7 +432,7 @@ class _Planner:
             fields.append(dataclasses.replace(f, dtype=dt))
         from ..interop.columnar import Schema as _Schema
 
-        return TpuUnion(_Schema(tuple(fields)).unqualify(), tuple(kids))
+        return PhysUnion(_Schema(tuple(fields)).unqualify(), tuple(kids))
 
     # -- scan --------------------------------------------------------------
     def _plan_scan(self, node: L.TableScan) -> PhysicalPlan:
@@ -453,7 +453,7 @@ class _Planner:
             indices = None
         out = table_schema if indices is None else table_schema.project(indices)
         qualifier = node.alias or node.table_name
-        return TpuTableScan(out.qualify(qualifier), node.table_name, indices, node.alias)
+        return PhysTableScan(out.qualify(qualifier), node.table_name, indices, node.alias)
 
     # -- projection --------------------------------------------------------
     def _plan_projection(self, node: L.Projection) -> PhysicalPlan:
@@ -473,7 +473,7 @@ class _Planner:
             pe = lower_expr(e, child.schema)
             fields.append(Field(_output_name(e), pe.dtype))
             exprs.append(pe)
-        return TpuProjection(Schema(fields), child, tuple(exprs))
+        return PhysProjection(Schema(fields), child, tuple(exprs))
 
     # -- join --------------------------------------------------------------
     def _plan_join(self, node: L.Join) -> PhysicalPlan:
@@ -505,7 +505,7 @@ class _Planner:
 
         presorted = self._build_key_sorted(right, right_keys)
         strategy = self._choose_join_strategy(left, right, presorted)
-        return TpuHashJoin(
+        return PhysHashJoin(
             out_schema, left, right, tuple(left_keys), tuple(right_keys),
             node.join_type, strategy, residual_expr,
             build_sorted_asc=presorted,
@@ -517,7 +517,7 @@ class _Planner:
         direct scan): reference ``join_kernel.rs:10-14`` documents
         SortMergeJoin "for pre-sorted data" but has no statistic; here the
         catalog proves it lazily and the executor skips the build sort."""
-        if len(right_keys) != 1 or not isinstance(right, TpuTableScan):
+        if len(right_keys) != 1 or not isinstance(right, PhysTableScan):
             return False
         rk = right_keys[0]
         if not isinstance(rk, ColumnRef):
@@ -568,14 +568,14 @@ class _Planner:
         return "radix_hash"
 
     def _estimate_rows(self, plan: PhysicalPlan) -> Optional[int]:
-        if isinstance(plan, TpuTableScan):
+        if isinstance(plan, PhysTableScan):
             try:
                 return self.catalog.get_row_count(plan.table_name)
             except Exception:
                 return None
-        if isinstance(plan, (TpuFilter, TpuProjection)):
+        if isinstance(plan, (PhysFilter, PhysProjection)):
             return self._estimate_rows(plan.input)
-        if isinstance(plan, TpuLimit) and plan.limit is not None:
+        if isinstance(plan, PhysLimit) and plan.limit is not None:
             return plan.limit
         return None
 
@@ -599,7 +599,7 @@ class _Planner:
             dtype = _agg_out_dtype(func, arg)
             aggs.append(AggSpec(func, arg, a.distinct, a.name(), dtype))
             fields.append(Field(a.name(), dtype))
-        return TpuAggregate(Schema(fields), child, group_exprs, tuple(aggs))
+        return PhysAggregate(Schema(fields), child, group_exprs, tuple(aggs))
 
 
 def _output_name(e: L.Expr) -> str:

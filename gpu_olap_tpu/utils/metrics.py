@@ -13,27 +13,46 @@ import dataclasses
 import time
 from typing import Dict, List, Optional
 
-# Per-chip HBM bandwidth estimates (bytes/s) for roofline accounting.
-HBM_BW_BY_PLATFORM = {
-    "tpu v4": 1.2e12,
-    "tpu v5 lite": 8.2e11,   # v5e: ~819 GB/s
-    "tpu v5": 2.8e12,        # v5p
-    "tpu v6 lite": 1.6e12,   # v6e (Trillium)
-    "cpu": 5.0e10,
+# Published device-memory bandwidth (bytes/s) per accelerator, keyed by the
+# lower-cased ``device_kind`` JAX reports; roofline shares divide by these.
+# H100 SXM: 3.35 TB/s HBM3 (NVIDIA H100 Tensor Core GPU data sheet).
+HBM_BW_BY_DEVICE_KIND = {
+    "nvidia h100 80gb hbm3": 3.35e12,
 }
 
 
-def detect_hbm_bandwidth() -> float:
-    try:
-        import jax
+def detect_hbm_bandwidth() -> Optional[float]:
+    """Peak device-memory bandwidth of ``jax.devices()[0]``.
 
-        kind = jax.devices()[0].device_kind.lower()
-        for key, bw in HBM_BW_BY_PLATFORM.items():
-            if key in kind:
-                return bw
-    except Exception:
-        pass
-    return HBM_BW_BY_PLATFORM["cpu"]
+    ``None`` on the CPU backend (no device roofline: "not measured"); an
+    accelerator missing from the table raises instead of borrowing another
+    device's peak."""
+    import jax
+
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        return None
+    kind = dev.device_kind.lower()
+    if kind not in HBM_BW_BY_DEVICE_KIND:
+        raise KeyError(f"no published memory bandwidth for device kind "
+                       f"{dev.device_kind!r}; add it to HBM_BW_BY_DEVICE_KIND")
+    return HBM_BW_BY_DEVICE_KIND[kind]
+
+
+def gpu_name_and_power_limit() -> Optional[str]:
+    """``nvidia-smi --query-gpu=name,power.limit`` for the first card, read
+    by a child process (the caller stays off JAX); None without the tool."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.strip().splitlines()
+    return lines[0].strip() if lines else None
 
 
 @dataclasses.dataclass
@@ -54,6 +73,7 @@ class MetricsRegistry:
         self.ops: Dict[str, OpStats] = collections.defaultdict(OpStats)
         self.counters: Dict[str, float] = collections.defaultdict(float)
         self._hbm_bw: Optional[float] = None
+        self._hbm_bw_known = False
 
     def record_span(self, label: str, seconds: float, rows_in: int = 0,
                     rows_out: int = 0, bytes_accessed: int = 0, **_):
@@ -68,16 +88,18 @@ class MetricsRegistry:
         self.counters[name] += value
 
     @property
-    def hbm_bandwidth(self) -> float:
-        if self._hbm_bw is None:
+    def hbm_bandwidth(self) -> Optional[float]:
+        if not self._hbm_bw_known:
             self._hbm_bw = detect_hbm_bandwidth()
+            self._hbm_bw_known = True
         return self._hbm_bw
 
-    def roofline_fraction(self, label: str) -> float:
-        """Achieved HBM bandwidth fraction for an operator."""
+    def roofline_fraction(self, label: str) -> Optional[float]:
+        """Achieved fraction of peak device-memory bandwidth for an operator;
+        ``None`` where no device peak applies (CPU backend)."""
         st = self.ops.get(label)
-        if st is None or st.seconds == 0:
-            return 0.0
+        if st is None or st.seconds == 0 or self.hbm_bandwidth is None:
+            return None
         return (st.bytes_accessed / st.seconds) / self.hbm_bandwidth
 
     def summary(self) -> List[dict]:
@@ -91,7 +113,7 @@ class MetricsRegistry:
                 "rows_out": st.rows_out,
                 "bytes": st.bytes_accessed,
                 "rows_per_sec": round(st.rows_per_sec, 1),
-                "hbm_roofline_frac": round(self.roofline_fraction(label), 4),
+                "hbm_roofline_frac": self.roofline_fraction(label),
             })
         return out
 

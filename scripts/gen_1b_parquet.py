@@ -1,5 +1,6 @@
 """Generate the reference's literal 1B-row GROUP BY workload parquet
-(README.md:332-334 there) at /tmp/gpu_olap_1b.parquet — same chunked
+(README.md:332-334 there) at <repo>/.data/gpu_olap_<rows>.parquet, the path
+bench.py's groupby_1b reads — same chunked
 writer + seed as bench.py's bench_groupby_1b, run standalone so the bench
 child doesn't pay the ~8 min generation inside its timeout."""
 import os
@@ -10,8 +11,11 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 
-path = os.environ.get("GPU_OLAP_1B_PARQUET", "/tmp/gpu_olap_1b.parquet")
 n_rows = int(float(sys.argv[1])) if len(sys.argv) > 1 else 1_000_000_000
+path = os.environ.get("GPU_OLAP_1B_PARQUET", os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".data",
+    f"gpu_olap_{n_rows}.parquet"))
+os.makedirs(os.path.dirname(path), exist_ok=True)
 n_groups = 4_000_000
 if os.path.exists(path):
     print(f"exists: {path}")

@@ -36,7 +36,7 @@ def test_cli_explain(parquet):
     r = _run("--table", f"t={parquet}", "--explain",
              "SELECT v FROM t WHERE v > 10")
     assert r.returncode == 0
-    assert "TpuTableScan" in r.stdout and "Filter" in r.stdout
+    assert "PhysTableScan" in r.stdout and "Filter" in r.stdout
 
 
 def test_cli_sql_error(parquet):

@@ -119,9 +119,9 @@ def test_decomposable_pair_aggregates(engines):
 
 
 def test_sorted_grouped_join_agg_opt_in(engines):
-    """The grouped sorted-space variant is OPT-IN (measured slower than the
-    probe-order path on v5e at bench-class shapes) — correctness still holds
-    when enabled."""
+    """The grouped sorted-space variant is OPT-IN (an A/B on the previous
+    accelerator found it slower than the probe-order path) — correctness
+    still holds when enabled."""
     from gpu_olap_tpu.utils.metrics import GLOBAL_METRICS
 
     _, cpu = engines

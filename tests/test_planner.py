@@ -29,7 +29,7 @@ def test_unknown_table_errors(engine):
 
 def test_scan_projection_indices(engine):
     plan = engine.plan_query("SELECT amount FROM sales WHERE year = 2024")
-    scans = _find(plan, P.TpuTableScan)
+    scans = _find(plan, P.PhysTableScan)
     assert len(scans) == 1
     # projection pruned to {amount, year}
     assert scans[0].projection is not None
@@ -49,7 +49,7 @@ def test_join_schema_merges_sides(engine):
         "SELECT s.amount, c.customer_name FROM sales s "
         "JOIN customers c ON s.customer_id = c.customer_id"
     )
-    joins = _find(plan, P.TpuHashJoin)
+    joins = _find(plan, P.PhysHashJoin)
     assert len(joins) == 1
     j = joins[0]
     assert len(j.left_keys) == 1 and len(j.right_keys) == 1
@@ -61,7 +61,7 @@ def test_join_strategy_broadcast_small_build(engine):
     plan = engine.plan_query(
         "SELECT s.amount FROM sales s JOIN customers c ON s.customer_id = c.customer_id"
     )
-    j = _find(plan, P.TpuHashJoin)[0]
+    j = _find(plan, P.PhysHashJoin)[0]
     # customers = 200 rows < 1M threshold -> broadcast
     assert j.strategy == "broadcast_hash"
 
@@ -71,7 +71,7 @@ def test_join_residual_filter(engine):
         "SELECT s.amount FROM sales s JOIN customers c "
         "ON s.customer_id = c.customer_id AND s.amount > c.credit"
     )
-    j = _find(plan, P.TpuHashJoin)[0]
+    j = _find(plan, P.PhysHashJoin)[0]
     assert len(j.left_keys) == 1
     assert j.residual is not None
 
@@ -81,7 +81,7 @@ def test_aggregate_schema(engine):
         "SELECT region, COUNT(*) AS n, SUM(amount) AS s, AVG(amount) AS a, "
         "MIN(quantity) AS mn FROM sales GROUP BY region"
     )
-    aggs = _find(plan, P.TpuAggregate)
+    aggs = _find(plan, P.PhysAggregate)
     assert len(aggs) == 1
     agg = aggs[0]
     assert [f.dtype for f in agg.schema] == [
@@ -92,13 +92,13 @@ def test_aggregate_schema(engine):
 
 def test_sum_int_stays_int(engine):
     plan = engine.plan_query("SELECT SUM(quantity) FROM sales")
-    agg = _find(plan, P.TpuAggregate)[0]
+    agg = _find(plan, P.PhysAggregate)[0]
     assert agg.aggs[0].out_dtype is DType.INT64
 
 
 def test_sort_limit_fusion(engine):
     plan = engine.plan_query("SELECT amount FROM sales ORDER BY amount DESC LIMIT 10")
-    sorts = _find(plan, P.TpuSort)
+    sorts = _find(plan, P.PhysSort)
     assert sorts and sorts[0].limit == 10
 
 
@@ -138,5 +138,5 @@ def test_join_strategy_override(engine):
     plan = eng.plan_query(
         "SELECT s.amount FROM sales s JOIN customers c ON s.customer_id = c.customer_id"
     )
-    j = _find(plan, P.TpuHashJoin)[0]
+    j = _find(plan, P.PhysHashJoin)[0]
     assert j.strategy == "sort_merge"
